@@ -2,8 +2,8 @@
 EDGE_SE2 constraints -> incremental optimization -> ATE report.
 
 The reference has no front-end (g2o consumes constraint graphs); this
-demonstrates BASELINE.json north-star config 5 on the TPU-native pipeline
-(apps/frontend.py): conv Shi-Tomasi detection, orientation-steered patch
+demonstrates the end-to-end front-end configuration of the roadmap
+(ROADMAP.md) on the JAX pipeline (apps/frontend.py): conv Shi-Tomasi detection, orientation-steered patch
 descriptors, one-matmul mutual-NN matching, closed-form relative SE2, and
 the incremental OnlineOptimizer closing the loop.
 

@@ -1,8 +1,8 @@
-"""openslam_g2o_tpu — a TPU-native framework for sparse nonlinear
+"""openslam_g2o_tpu — a JAX framework for sparse nonlinear
 least-squares on graphs (SLAM pose graphs, landmark SLAM, bundle adjustment).
 
 A from-scratch re-design of the capability set of g2o (OpenSLAM-org/
-openslam_g2o) for JAX/XLA on TPU: struct-of-array graph specs grouped by
+openslam_g2o) for JAX/XLA on accelerators: struct-of-array graph specs grouped by
 vertex/edge type, vmapped error kernels with forward-mode autodiff on manifold
 tangents, batched block Hessian assembly, Schur-complement landmark reduction,
 jit-compiled Gauss-Newton / Levenberg-Marquardt / Dogleg outer loops, and

@@ -1,4 +1,4 @@
-"""tpu_g2o — batch CLI mirroring the reference `g2o` binary.
+"""g2o — batch CLI mirroring the reference `g2o` binary.
 
 Re-implements the batch path of apps/g2o_cli/g2o.cpp:101-668 (flags
 :131-159, batch flow :534-641): load a .g2o file, choose the optimization
@@ -19,8 +19,8 @@ import numpy as np
 
 def build_parser():
     p = argparse.ArgumentParser(
-        prog="tpu_g2o",
-        description="TPU-native graph optimizer (g2o CLI equivalent)")
+        prog="g2o",
+        description="JAX graph optimizer (g2o CLI equivalent)")
     p.add_argument("input", nargs="?", help="input .g2o file")
     p.add_argument("-i", dest="max_iterations", type=int, default=10,
                    help="perform n iterations (default 10)")
@@ -76,7 +76,7 @@ def build_parser():
     p.add_argument("-renameTypes", default="",
                    help="comma-separated list of oldtag=newtag renames")
     p.add_argument("-f32", action="store_true",
-                   help="optimize in float32 (TPU-native precision)")
+                   help="optimize in float32 (default: float64)")
     return p
 
 

@@ -1,20 +1,20 @@
-"""Minimal TPU-native visual front-end: detect + describe + match.
+"""Minimal JAX visual front-end: detect + describe + match.
 
 The reference consumes already-built constraint graphs and has no image
 front-end (its closest analogue is the measurement simulator,
-g2o/apps/g2o_simulator/); BASELINE.json's north star names an end-to-end
-"feature detect+match front-end" config, so this module provides the
-TPU-native minimal version (scope recorded in BASELINE.md):
+g2o/apps/g2o_simulator/); an end-to-end "feature detect+match front-end"
+is on the roadmap (ROADMAP.md), so this module provides a minimal version
+(scope recorded in BASELINE.md):
 
 * Shi-Tomasi corner scoring as pure convolutions (Sobel gradients +
-  box-filtered structure tensor + closed-form min-eigenvalue) — MXU/VPU
+  box-filtered structure tensor + closed-form min-eigenvalue) — dense
   work, batched over frames with vmap.
 * Non-max suppression via reduce_window max-pooling, top-k keypoints with
   STATIC shapes (max_kp padded, validity mask) — jit-friendly throughout.
 * Patch descriptors (zero-mean, unit-norm pixel patches) gathered with
   vmapped dynamic_slice.
 * Matching = ONE [K, K] descriptor cosine-similarity matmul + mutual
-  nearest-neighbour + ratio test. This is the MXU-shaped formulation of
+  nearest-neighbour + ratio test. This is the matmul-shaped formulation of
   matching: no loops, no trees.
 * Closed-form 2D rigid alignment (Umeyama/Procrustes) of matched keypoint
   coordinates -> a relative SE2 measurement with a match-count-scaled
@@ -140,7 +140,7 @@ def match_descriptors(d0, d1, valid0, valid1, min_sim: float = 0.6,
 
     Returns (idx1 [K0] int32 — the match of each kp0 in kp1, ok [K0] bool).
     """
-    sim = d0 @ d1.T                                     # [K0, K1] on the MXU
+    sim = d0 @ d1.T                                     # [K0, K1] matmul
     neg = -jnp.inf
     sim = jnp.where(valid0[:, None] & valid1[None, :], sim, neg)
     best1 = jnp.argmax(sim, axis=1)                     # kp0 -> kp1

@@ -32,6 +32,20 @@ def _info_from_sigmas(sigmas):
     return np.diag(1.0 / np.asarray(sigmas) ** 2)
 
 
+def _revisits(pos, radius, min_gap=5):
+    """Pairs (i, j), j >= i + min_gap, in row-major order, whose positions
+    lie within `radius`: the pose sensor's loop-closure candidates. A
+    vectorized pre-filter per i, with the exact per-pair distance test
+    re-applied so that the pairs (and the random draws that follow them)
+    are those of the plain double loop."""
+    n = len(pos)
+    for i in range(n - min_gap):
+        d = np.linalg.norm(pos[i + min_gap:] - pos[i], axis=1)
+        for j in i + min_gap + np.nonzero(d < radius * (1 + 1e-9))[0]:
+            if np.linalg.norm(pos[i] - pos[j]) < radius:
+                yield i, int(j)
+
+
 class Simulator2D:
     """2D robot in a planar world with landmarks (test_simulator2d.cpp)."""
 
@@ -92,15 +106,13 @@ class Simulator2D:
 
         if loop_closures:
             # pose sensor: relative constraints to revisited poses
-            for i in range(n_poses):
-                for j in range(i + 5, n_poses):
-                    if np.linalg.norm(gt[i][:2] - gt[j][:2]) < 1.0 \
-                            and self.rng.random() < 0.3:
-                        z = np_lie.se2_compose(np_lie.se2_inverse(gt[i]), gt[j])
-                        zn = z + self.rng.normal(
-                            0, [*self.trans_noise, self.rot_noise])
-                        zn[2] = np_lie.normalize_angle(zn[2])
-                        g.add_edge("edge_se2", (i, j), zn, odo_info)
+            for i, j in _revisits(gt[:, :2], 1.0):
+                if self.rng.random() < 0.3:
+                    z = np_lie.se2_compose(np_lie.se2_inverse(gt[i]), gt[j])
+                    zn = z + self.rng.normal(
+                        0, [*self.trans_noise, self.rot_noise])
+                    zn[2] = np_lie.normalize_angle(zn[2])
+                    g.add_edge("edge_se2", (i, j), zn, odo_info)
 
         lm_seen = {}
         if landmark_obs:
@@ -182,12 +194,10 @@ class Simulator3D:
             g.add_edge("edge_se3", (i - 1, i), zn, odo_info)
 
         if loop_closures:
-            for i in range(n_poses):
-                for j in range(i + 5, n_poses):
-                    if np.linalg.norm(gt[i][:3] - gt[j][:3]) < 1.5 \
-                            and self.rng.random() < 0.3:
-                        z = np_lie.se3_compose(np_lie.se3_inverse(gt[i]), gt[j])
-                        g.add_edge("edge_se3", (i, j), z, odo_info)
+            for i, j in _revisits(gt[:, :3], 1.5):
+                if self.rng.random() < 0.3:
+                    z = np_lie.se3_compose(np_lie.se3_inverse(gt[i]), gt[j])
+                    g.add_edge("edge_se3", (i, j), z, odo_info)
 
         if landmark_obs:
             seen = set()
@@ -511,7 +521,7 @@ def main(argv=None):
     from openslam_g2o_tpu.io.g2o_format import save_g2o
 
     p = argparse.ArgumentParser(
-        prog="tpu_g2o_simulator",
+        prog="g2o_simulator",
         description="synthetic dataset generator (g2o_simulator equivalent)")
     p.add_argument("output", help="output .g2o file")
     p.add_argument("-type", choices=["2d", "3d", "sphere"], default="2d")

@@ -2,8 +2,8 @@
 
 The reference ships a Qt4/QGLViewer GUI (apps/g2o_viewer, run_g2o_viewer.cpp
 :66-88) that draws vertices/edges via per-type "draw" HyperGraphElementActions
-and writes gnuplot dumps via output_helper.cpp. A TPU training/serving image
-has no display server, so the equivalent here is headless rendering:
+and writes gnuplot dumps via output_helper.cpp. An accelerator host
+usually has no display server, so the equivalent here is headless rendering:
 
 * `plot_graph` -> matplotlib PNG/SVG (2D top-down or 3D projection), with
   optional covariance ellipses from the marginals module,

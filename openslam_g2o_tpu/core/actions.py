@@ -3,7 +3,7 @@
 The reference dispatches named actions ("draw", "writeGnuplot") to per-type
 handlers through a singleton HyperGraphActionLibrary
 (g2o/core/hyper_graph_action.h:137-205; applyAction :162; DrawAction :179,
-WriteGnuplotAction :167), registered via G2O_REGISTER_ACTION. The TPU build
+WriteGnuplotAction :167), registered via G2O_REGISTER_ACTION. This build
 keeps the same shape host-side: actions are plain functions keyed by
 (action name, element type name); `apply_action` walks a Graph and invokes
 the matching handler per element. The viewer (apps/viewer.py) and the CLI's

@@ -1,13 +1,13 @@
-"""Schur-complement bundle adjustment: landmark marginalization on TPU.
+"""Schur-complement bundle adjustment: landmark marginalization.
 
-TPU-native re-design of the reference's BlockSolver Schur path
+JAX re-design of the reference's BlockSolver Schur path
 (g2o/core/block_solver.hpp:143-295 buildStructure, :353-486 solve): the
 reference materializes Hschur = Hpp - Hpl Hll^-1 Hpl^T block-by-block under
 OpenMP mutexes and hands it to CHOLMOD. Here the landmark system is never
 materialized globally:
 
-* Hpp (pose-pose) is assembled dense over the pose tangent block — on TPU a
-  [Tp, Tp] dense matrix is cheap for Tp up to ~2e4,
+* Hpp (pose-pose) is assembled dense over the pose tangent block — a
+  [Tp, Tp] dense matrix is cheap on an accelerator for Tp up to ~2e4,
 * Hll is a batched ``[L, d, d]`` block-diagonal (landmarks are conditionally
   independent — the same assumption the reference's Schur layout makes),
   inverted with one batched solve,
@@ -156,8 +156,7 @@ def schur_build(problem: Problem, params: Optional[dict] = None,
                 W = jnp.einsum("eas,eab,ebt->est", jacs[t], w_omega, jacs[s])
                 # W: [E, Dp, dl]; the two sorted orderings make every
                 # accumulation in the PCG hot loop a sorted segment_sum
-                # (gathers + contiguous reductions — no random scatters,
-                # which serialize on TPU)
+                # (gathers + contiguous reductions — no random scatters)
                 cross.append({
                     "W": W, "rows": idx[t], "li": li, "group": slot_groups[t],
                     "perm_cam": p_["perm_cam"], "cam_sorted": p_["cam_sorted"],

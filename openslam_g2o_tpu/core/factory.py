@@ -5,8 +5,8 @@ The analogue of OptimizationAlgorithmFactory
 registration lists (e.g. solvers/csparse/solver_csparse.cpp:104-124).
 
 Name grammar mirrors the reference: ``{gn|lm|dl}_{var|fixN_M}[_backend]``.
-On TPU the "linear solver backend" distinction collapses: `dense` is the
-MXU dense Cholesky (the default — it is the fastest choice far beyond the
+Here the "linear solver backend" distinction collapses: `dense` is the
+dense Cholesky (the default — it is the fastest choice far beyond the
 sizes where the reference must go sparse), `pcg` is matrix-free block-Jacobi
 PCG, and `schur` toggles landmark marginalization (the reference's
 -marginalize + fixed-size BlockSolver_6_3 path). Block sizes are inferred
@@ -134,8 +134,8 @@ class AlgorithmSpec:
 
 def construct_algorithm(name: str) -> AlgorithmSpec:
     """Resolve a g2o-style solver name. Unknown legacy backends (csparse,
-    cholmod, eigen) map to the TPU dense solver — same semantics (exact
-    factorization), different hardware-native implementation."""
+    cholmod, eigen) map to the dense solver — same semantics (exact
+    factorization), different implementation."""
     if name in ("structure_only_2", "structure_only_3"):
         return AlgorithmSpec("structure_only", "dense", False)
     if name == "2dlinear":
@@ -165,5 +165,5 @@ def list_algorithms():
             for backend in ("", "_dense", "_pcg"):
                 out.append((f"{algo}_{blocks}{backend}",
                             f"{desc}, {bdesc}, "
-                            f"{'PCG' if backend == '_pcg' else 'TPU dense Cholesky'}"))
+                            f"{'PCG' if backend == '_pcg' else 'dense Cholesky'}"))
     return out

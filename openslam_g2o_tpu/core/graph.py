@@ -1,6 +1,6 @@
 """Host-side graph container.
 
-The TPU-native replacement for HyperGraph/OptimizableGraph
+The JAX replacement for HyperGraph/OptimizableGraph
 (g2o/core/hyper_graph.h:59, g2o/core/optimizable_graph.h:65). The reference
 stores heap-allocated vertex/edge objects wired by pointers; here the graph is
 a plain Python-side record store whose only job is bookkeeping (ids, types,

@@ -6,7 +6,7 @@ Host-side analogue of EstimatePropagator (g2o/core/estimate_propagator.h:51-161,
 the fixed (gauge) vertices, and initialize every reached vertex from its tree
 parent via the edge's `initial_estimate` rule. This is a once-per-solve graph
 traversal over host numpy data — the device recompute afterwards is what
-matters for TPU, so a Python BFS/priority queue is the right tool (the
+matters on the accelerator, so a Python BFS/priority queue is the right tool (the
 reference also runs this single-threaded on the CPU).
 
 Edge types opt in by providing ``initial_estimate(vparams, meas, pdata, slot)``

@@ -153,7 +153,8 @@ def build_problem(graph, dtype=None, level: int = 0,
     pad_counts: optional callable n -> padded_n applied to every vertex and
     edge table size. Used by the online/incremental optimizer to keep array
     shapes in a small set of buckets so jit caches hit as the graph grows
-    (the TPU answer to the reference's incremental CHOLMOD rank updates,
+    (the accelerator answer to the reference's incremental CHOLMOD rank
+    updates,
     graph_optimizer_sparse_incremental.cpp:194-420 — recompilation amortizes
     away, re-solves are warm-started). Padding vertices are fixed at the
     origin; padding edges have zero information, so neither contributes.
@@ -417,7 +418,7 @@ def build_dense_system(problem: Problem, params: Optional[dict] = None,
     """Assemble the full dense H = J^T W J and b = -J^T W r over the global
     tangent vector.
 
-    The TPU-native replacement for BlockSolver::buildSystem's zero-copy
+    The JAX replacement for BlockSolver::buildSystem's zero-copy
     mapped-memory accumulation (block_solver.hpp:502-560): per-edge blocks are
     batched einsums scattered into H with jnp scatter-add (deterministic, no
     per-vertex locks needed — compare openmp_mutex.h).
@@ -466,7 +467,7 @@ def hessian_operator(problem: Problem, lin: dict):
     """Return (matvec, diag_blocks, b) where matvec(x) = H x applied
     edge-wise — H = sum_e J_e^T W_e J_e is never materialized, each
     application is two gathers + one scatter-add per slot pair (O(E) work,
-    the TPU-native analogue of BlockSolverBase::multiplyHessian,
+    the JAX analogue of BlockSolverBase::multiplyHessian,
     block_solver.h:90), and diag_blocks[group] is the [N, D, D] block
     diagonal for block-Jacobi preconditioning (linear_solver_pcg.h:47).
     """
@@ -524,7 +525,7 @@ def block_jacobi_preconditioner(problem: Problem, diag_blocks: dict, lam):
 
     def precond(r: dict):
         # elementwise multiply + reduce, not einsum: XLA lowers batched tiny
-        # dots to MXU calls at ~1% utilization (see core/sparse.bmm_small)
+        # dots to tiny matmul calls (see core/sparse.bmm_small)
         return {name: (invs[name] * r[name][:, None, :]).sum(-1)
                 for name in r}
 
@@ -535,7 +536,7 @@ def block_jacobi_preconditioner_lane(problem: Problem, diag_blocks: dict,
                                      lam):
     """Lane-major block-Jacobi preconditioner: applies to dicts of [D, N]
     parts with the inverse blocks pre-transposed to [D, D, N], so the PCG hot
-    loop's precondition step is a single VPU multiply-reduce with no per-call
+    loop's precondition step is a single elementwise multiply-reduce with no per-call
     transposes."""
     dt = problem.dtype
     invs = {}

@@ -1,4 +1,4 @@
-"""Type registries: the TPU-native analogue of g2o's Factory.
+"""Type registries: the JAX analogue of g2o's Factory.
 
 The reference registers C++ classes under string tags via static proxies
 (g2o/core/factory.h:49-120, G2O_REGISTER_TYPE) and constructs per-element

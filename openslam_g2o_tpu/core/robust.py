@@ -1,6 +1,6 @@
 """Robust kernels: rho(e2) -> (rho, rho', rho'').
 
-TPU-native rework of the reference's RobustKernel class hierarchy
+JAX rework of the reference's RobustKernel class hierarchy
 (g2o/core/robust_kernel.h:52-78, robust_kernel_impl.cpp:65-134,
 robust_kernel_factory.h): each kernel is a pure branch-free function of the
 squared error that vmaps over all edges of a group at once; the registry

@@ -1,13 +1,14 @@
 """Linear solvers for the normal equations H dx = b.
 
-TPU-native replacements for the reference's LinearSolver backends
+JAX replacements for the reference's LinearSolver backends
 (g2o/core/linear_solver.h:41-105; g2o/solvers/{csparse,cholmod,eigen,dense,
-pcg}): on TPU the fast paths are (a) one big dense Cholesky on the MXU —
-pose-graph tangent spaces up to ~2e4 dims fit comfortably in HBM — and
+pcg}): on an accelerator the fast paths are (a) one big dense Cholesky —
+pose-graph tangent spaces up to ~2e4 dims fit comfortably in device
+memory — and
 (b) matrix-free block-Jacobi PCG where H is only ever applied as batched
 per-edge J^T Omega J products (the reference's PCG, linear_solver_pcg.h:47,
-is the closest relative; sparse Cholesky on scalar CCS structures has no
-efficient TPU mapping and is deliberately not reproduced).
+is the closest relative; sparse Cholesky on scalar CCS structures does not
+vectorize and is deliberately not reproduced).
 """
 from __future__ import annotations
 
@@ -25,8 +26,8 @@ __all__ = ["solve_dense_cholesky", "pcg_solve", "batched_small_inv",
 def batched_small_inv(A):
     """Inverse of a batch of small SPD matrices.
 
-    For D in {1, 2, 3} uses the closed-form adjugate — pure elementwise VPU
-    arithmetic, orders of magnitude faster on TPU than batched LU
+    For D in {1, 2, 3} uses the closed-form adjugate — pure elementwise
+    arithmetic that fuses, instead of a batched LU on tiny matrices
     (jnp.linalg.inv lowers small batched inverses poorly). Larger D falls
     back to jnp.linalg.inv.
     """
@@ -64,7 +65,7 @@ def batched_chol_inv_lower(A):
     """L^-1 for a batch of small SPD matrices A = L L^T.
 
     D in {1, 2, 3} uses the closed-form scalar Cholesky + forward solve —
-    pure elementwise VPU arithmetic (the building block of the Jacobi-scaled
+    pure elementwise arithmetic (the building block of the Jacobi-scaled
     CG fast path). Larger D falls back to batched cholesky + triangular
     solve.
     """
@@ -110,7 +111,7 @@ def batched_chol_inv_lower(A):
 
 def batched_chol_lower(A):
     """L for a batch of small SPD matrices A = L L^T (closed form for
-    D <= 3, elementwise VPU arithmetic; jnp.linalg.cholesky beyond)."""
+    D <= 3, elementwise arithmetic; jnp.linalg.cholesky beyond)."""
     D = A.shape[-1]
     if D == 1:
         return jnp.sqrt(A)
@@ -168,7 +169,7 @@ def make_chebyshev_precond(matvec, lo, hi, degree: int):
     """Chebyshev polynomial preconditioner z = p(S) r, where p is the
     degree-(degree-1) Chebyshev approximation to S^-1 on [lo, hi].
 
-    Built for the LATENCY-BOUND hot loop of small-block PCG on TPU: each
+    Built for the LATENCY-BOUND hot loop of small-block PCG: each
     outer CG iteration carries ~20 tiny-op overheads (dots, axpys, the
     while_loop sync) around one matvec. A polynomial preconditioner spends
     (degree-1) extra matvecs per outer iteration to cut the OUTER iteration
@@ -221,7 +222,7 @@ def pcg_solve(matvec, b, precond=None, max_iter: int = 100,
     it jits into a single fused program.
 
     Operands may be flat arrays OR pytrees of per-group parts — the pytree
-    form keeps the hot loop free of gather/scatter on TPU.
+    form keeps the hot loop free of gather/scatter.
 
     unroll: CG iterations per while_loop body. At pose-graph sizes each
     iteration is latency-bound (~30 tiny ops), so checking the tolerance

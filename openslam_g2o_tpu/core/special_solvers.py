@@ -1,6 +1,6 @@
 """Special-purpose solvers: structure-only BA and the linear 2D initializer.
 
-TPU-native re-designs of g2o/solvers/structure_only
+JAX re-designs of g2o/solvers/structure_only
 (structure_only_solver.h:40-200) and g2o/solvers/slam2d_linear
 (solver_slam2d_linear.cpp:84-215, Carlone et al. RSS'11).
 """

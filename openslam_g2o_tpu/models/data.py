@@ -1,6 +1,6 @@
 """Non-optimized data payloads attached to vertices: laser scans, tags.
 
-TPU-native re-design of g2o/types/data (robot_laser.cpp, raw_laser.cpp,
+JAX re-design of g2o/types/data (robot_laser.cpp, raw_laser.cpp,
 vertex_tag.cpp, data_queue.h). These never touch the device — they are
 structured payloads riding along with graph vertices (the reference chains
 them via Data::next(), optimizable_graph.h:82-98; here each vertex record

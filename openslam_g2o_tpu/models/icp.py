@@ -1,6 +1,6 @@
 """GICP point-with-normal alignment edges between SE3 poses.
 
-TPU-native re-design of g2o/types/icp (types_icp.cpp:35-36). Measurement per
+JAX re-design of g2o/types/icp (types_icp.cpp:35-36). Measurement per
 edge: (pos0, normal0, pos1, normal1). Error = T0^-1 * (T1 * pos1) - pos0
 (types_icp.h:183-218).
 

@@ -1,7 +1,7 @@
 """Bundle-adjustment types: expmap cameras, SBA cameras with intrinsics,
 3D points, and projection edges.
 
-TPU-native re-design of g2o/types/sba (types_sba.cpp + types_six_dof_expmap
+JAX re-design of g2o/types/sba (types_sba.cpp + types_six_dof_expmap
 .cpp registrations). Conventions matched to the reference:
 
 * VertexSE3Expmap stores the **world-to-camera** transform; the .g2o file

@@ -1,7 +1,7 @@
 """Sensor-calibration SLAM (sclam2d): joint estimation of robot poses, a
 laser sensor offset, and differential-drive odometry parameters.
 
-TPU-native re-design of g2o/types/sclam2d (types_sclam2d.cpp:42-45). The
+JAX re-design of g2o/types/sclam2d (types_sclam2d.cpp:42-45). The
 calibration unknowns are ordinary vertices (not graph parameters), exactly as
 in the reference — every edge is a hyperedge touching them.
 """

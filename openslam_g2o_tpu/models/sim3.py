@@ -1,6 +1,6 @@
 """Sim(3) types for scale-drift-aware monocular SLAM.
 
-TPU-native re-design of g2o/types/sim3 (types_seven_dof_expmap.h). Storage:
+JAX re-design of g2o/types/sim3 (types_seven_dof_expmap.h). Storage:
 ``(t(3), q(4), s(1), fx, fy, cx, cy)`` = 12 params; tangent is the 7-vector
 ``(omega, upsilon, sigma)``. Conventions matched to the reference:
 

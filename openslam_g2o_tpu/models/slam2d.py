@@ -1,6 +1,6 @@
 """2D SLAM types: SE2 poses, XY landmarks, and their constraint edges.
 
-TPU-native re-design of g2o/types/slam2d (types_slam2d.cpp registrations):
+JAX re-design of g2o/types/slam2d (types_slam2d.cpp registrations):
 each type is a declarative record of pure batched functions instead of a
 BaseVertex/BaseEdge subclass. Tags match the .g2o file format so all bundled
 2D datasets load directly.

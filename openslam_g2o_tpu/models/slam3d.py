@@ -1,7 +1,7 @@
 """3D SLAM types: SE3 poses (stored as translation + quaternion), XYZ
 landmarks, sensor-offset parameters, and their constraint edges.
 
-TPU-native re-design of g2o/types/slam3d (types_slam3d.cpp registrations).
+JAX re-design of g2o/types/slam3d (types_slam3d.cpp registrations).
 The reference stores estimates as Eigen::Isometry3d with periodic rotation
 re-orthonormalization (vertex_se3.h:107-118); we store unit quaternions and
 renormalize every retract, which is cheaper and exact. Error conventions

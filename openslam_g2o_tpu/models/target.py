@@ -1,6 +1,6 @@
 """Target-tracking types: constant-velocity / static target estimation.
 
-TPU-native re-design of the reference's target example types
+JAX re-design of the reference's target example types
 (g2o/examples/target/targetTypes3D.hpp, targetTypes6D.hpp): Euclidean
 position / velocity / position+velocity vertices, a constant-velocity
 process-model ("target odometry") edge driven by accelerometer

@@ -2,7 +2,7 @@
 //
 // The reference's loader is C++ iostream-based (optimizable_graph.cpp:356-569
 // reads token by token through virtual read() methods). This module is the
-// equivalent native layer for the TPU framework: it tokenizes an entire .g2o
+// equivalent native layer for this framework: it tokenizes an entire .g2o
 // buffer in one pass into (line records, numeric values) arrays that Python
 // turns into struct-of-arrays tables without per-token Python overhead.
 // BAL/venice-scale files (~100 MB) parse in well under a second vs tens of

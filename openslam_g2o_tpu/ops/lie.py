@@ -1,6 +1,6 @@
-"""Batched Lie-group / manifold kernels for TPU graph optimization.
+"""Batched Lie-group / manifold kernels for graph optimization.
 
-This is the TPU-native replacement for the reference's per-object manifold
+This is the JAX replacement for the reference's per-object manifold
 classes (g2o/types/slam2d/se2.h, g2o/types/slam3d/se3quat.h,
 g2o/types/slam3d/isometry3d_mappings.{h,cpp}, g2o/types/sim3/sim3.h).
 Instead of C++ objects with virtual `oplusImpl`, every group element is a flat

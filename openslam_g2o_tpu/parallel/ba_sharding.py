@@ -1,6 +1,6 @@
 """Distributed bundle adjustment: landmark-partitioned Schur over a mesh.
 
-The flagship multi-chip configuration (BASELINE.json north star): each device
+The flagship multi-device configuration (ROADMAP.md, Reach item 7): each device
 owns a contiguous partition of the landmarks and ALL observations of those
 landmarks, so the block-diagonal landmark system (Hll, b_l, the per-edge
 pose-landmark blocks W) is device-local. The reduced camera system is the

@@ -2,21 +2,19 @@
 
 The reference has no distributed execution at all (SURVEY §2.7); its big-graph
 levers are sparsity + CHOLMOD (block_solver.hpp:353-486). This module is the
-TPU-native scaling story for *pose graphs* too large for one chip's HBM or one
-host:
+scaling story for *pose graphs* too large for one device's memory:
 
-  * **Rows (keyframes) are partitioned over the `row_axis`** of the mesh —
-    intended to be the DCN/multi-host axis. Vertex insertion order in a SLAM
-    graph is trajectory order, so contiguous row blocks are contiguous
-    keyframe submaps; each host owns the block-ELL Hessian rows (the O(N*K*D^2)
-    object) of its submap.
+  * **Rows (keyframes) are partitioned over the `row_axis`** of the mesh.
+    Vertex insertion order in a SLAM graph is trajectory order, so
+    contiguous row blocks are contiguous keyframe submaps; each device owns
+    the block-ELL Hessian rows (the O(N*K*D^2) object) of its submap.
   * **Edges are sharded over the whole mesh** for linearization/assembly
     (data parallel, the analogue of the reference's OpenMP edge loop,
     block_solver.hpp:521-545) and reduced with one psum per LM iteration.
   * **The PCG hot loop keeps its state replicated** (tangent vectors are
     O(N*D) — tiny next to the Hessian): the only per-iteration collective is
-    ONE `all_gather` of the local matvec rows over `row_axis`. Over DCN that
-    is the minimum possible traffic for an exact distributed SpMV — the state
+    ONE `all_gather` of the local matvec rows over `row_axis`: the minimum
+    possible traffic for an exact distributed SpMV — the state
     vector, once per iteration; dot products need no communication at all
     because every replica holds the full vectors.
 
@@ -253,7 +251,7 @@ def make_distributed_pcg_lm_step(problem: Problem, mesh: Mesh,
             precond = block_jacobi_preconditioner(work, diag_blocks, lam)
 
             def matvec(x):
-                # row-local SpMV (lane gather + VPU reduce on the owned
+                # row-local SpMV (lane gather + reduce on the owned
                 # block, the single-device ell_matvec layout; DIA pairs
                 # consume shifted dynamic_slice windows instead) ...
                 xT = {k: v.T for k, v in x.items()}

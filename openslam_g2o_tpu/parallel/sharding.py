@@ -2,8 +2,8 @@
 
 The reference's only intra-process parallelism is optional OpenMP over edges
 with per-vertex mutexes (SURVEY §2.7; block_solver.hpp:521-545,
-sparse_optimizer.cpp:70-76). The TPU-native equivalent is SPMD over a device
-mesh: each chip owns a shard of every edge table, linearizes its edges with
+sparse_optimizer.cpp:70-76). The equivalent here is SPMD over a device
+mesh: each device owns a shard of every edge table, linearizes its edges with
 the same vmapped kernels as the single-chip path, accumulates its *partial*
 dense system (H_d, b_d, chi2_d), and a psum over the mesh replaces the
 mutex-guarded shared-memory accumulation. Vertex parameter tables are

@@ -1,8 +1,9 @@
 """Roofline / MFU accounting: tie measured phase times to hardware limits.
 
 The reference's per-phase discipline (G2OBatchStatistics,
-g2o/core/batch_stats.h:40-84) records wall-clock only; on TPU a time is
-unfalsifiable without the corresponding FLOP and byte counts, so this module
+g2o/core/batch_stats.h:40-84) records wall-clock only; on an accelerator a
+time is unfalsifiable without the corresponding FLOP and byte counts, so this
+module
 pairs every measured kernel with an analytic cost model and reports achieved
 FLOP/s and HBM bandwidth against the chip's peaks, plus the roofline-implied
 ceiling min(peak_flops, AI * BW) for its arithmetic intensity.
@@ -22,32 +23,31 @@ __all__ = ["chip_peaks", "roofline_report", "ell_pcg_iteration_cost",
            "ba_ell_step_cost", "linearize_cost"]
 
 
-# Peak numbers per device kind (public spec sheets; the scaling-book values).
-# flops are dense-matmul peaks; our kernels are VPU/elementwise so the
-# governing limit is HBM bandwidth in every case below.
+# Peak rates per device kind, keyed by jax's `device_kind`. Source: NVIDIA
+# H100 SXM data sheet, dense rates without sparsity, at the full 700 W power
+# limit (a card set below it cannot hold these clocks under load, so report
+# its power limit beside any share of them). The sparse kernels here are
+# elementwise and gather work, governed by memory bandwidth.
 _PEAKS = {
-    # device_kind substring -> (peak bf16 FLOP/s, peak f32 FLOP/s, HBM B/s)
-    "v5 lite": (197e12, 49.2e12, 819e9),     # TPU v5e
-    "v5e": (197e12, 49.2e12, 819e9),
-    "v5p": (459e12, 114.8e12, 2765e9),
-    "v4": (275e12, 68.8e12, 1228e9),
-    "v6 lite": (918e12, 229.5e12, 1640e9),   # Trillium
-    "cpu": (1e12, 5e11, 100e9),              # nominal, for host test runs
+    "NVIDIA H100 80GB HBM3": {
+        "peak_bf16_flops": 989e12,
+        "peak_tf32_flops": 495e12,
+        "peak_f32_flops": 67e12,      # outside the tensor cores
+        "hbm_bytes_per_s": 3.35e12,
+    },
 }
 
 
 def chip_peaks(device=None) -> dict:
     """Peak FLOP/s and HBM bandwidth for the device (first jax device by
-    default)."""
+    default). A device kind without a row is an error, never a default."""
     device = device or jax.devices()[0]
-    kind = getattr(device, "device_kind", "cpu").lower()
-    for sub, (bf16, f32, bw) in _PEAKS.items():
-        if sub in kind:
-            return {"device_kind": kind, "peak_bf16_flops": bf16,
-                    "peak_f32_flops": f32, "hbm_bytes_per_s": bw}
-    return {"device_kind": kind, "peak_bf16_flops": _PEAKS["cpu"][0],
-            "peak_f32_flops": _PEAKS["cpu"][1],
-            "hbm_bytes_per_s": _PEAKS["cpu"][2]}
+    kind = device.device_kind
+    if kind not in _PEAKS:
+        raise ValueError(
+            f"no peak rates for device kind {kind!r}; add a row with its "
+            f"source to utils/roofline._PEAKS")
+    return {"device_kind": kind, **_PEAKS[kind]}
 
 
 @dataclass
@@ -62,18 +62,15 @@ def ell_pcg_iteration_cost(problem, pattern, itemsize: int = 4) -> PhaseCost:
     """FLOPs/bytes of ONE PCG iteration on the block-ELL Hessian.
 
     Matvec: per pair table — 2*slots*Dr*Dc FLOPs; HBM traffic is the value
-    tables (they exceed VMEM at scale and MUST stream every iteration)
-    plus, for gather pairs, the gathered x lanes and int32 index table.
-    DIA pairs (EllPattern dia_*) consume statically shifted copies of a
-    VMEM-resident x, so their compulsory traffic is the value planes +
-    residual tier only — the round-4 model billed them with the
-    gather-ELL byte count and printed an unphysical 114% of HBM bandwidth.
+    tables (they stream every iteration) plus, for gather pairs, the
+    gathered x lanes and int32 index table. DIA pairs (EllPattern dia_*)
+    consume statically shifted copies of x, so their compulsory traffic is
+    the value planes + residual tier only.
 
-    Vector traffic: when any pair runs the DIA form the iteration is a
-    fused while_loop whose CG state ([D, N] lane-major, a few MB at 100k
-    poses) stays VMEM-resident — count one x-read + one y-write as the
-    compulsory floor. Otherwise keep the streaming model (small graphs
-    are latency-bound and the distinction is noise there).
+    Vector traffic: when any pair runs the DIA form, count one x-read + one
+    y-write of the CG state as the compulsory floor. Otherwise keep the
+    streaming model (small graphs are latency-bound and the distinction is
+    noise there).
     """
     flops = 0.0
     bts = 0.0
@@ -115,7 +112,7 @@ def ell_pcg_iteration_cost(problem, pattern, itemsize: int = 4) -> PhaseCost:
     flops += 3 * 2.0 * T           # p.Hp, r.z, r.r
     flops += 3 * 2.0 * T           # 3 axpys
     if any_dia:
-        bts += 2 * T * itemsize    # x in + y out; CG state VMEM-resident
+        bts += 2 * T * itemsize    # x in + y out
     else:
         bts += Dsum * itemsize
         bts += 10 * T * itemsize   # vector reads/writes across the iteration
@@ -151,7 +148,7 @@ def ba_ell_step_cost(problem, pattern, pcg_iters: int,
     """One dual-ELL Schur LM step (core/ba_ell.py).
 
     Models whichever solve branch the pattern routes to: the dense-Schur
-    path (one-hot densify + [Tp, Tp] MXU Cholesky — dominated by the
+    path (one-hot densify + [Tp, Tp] dense Cholesky — dominated by the
     S = B Hinv B^T matmul, 2 * Tp^2 * (dl*L) FLOPs) when the dense operand
     is present and the gates pass, else the implicit matrix-free PCG path
     (per-iteration W gathers + multiply-reduces)."""
@@ -188,7 +185,7 @@ def ba_ell_step_cost(problem, pattern, pcg_iters: int,
             bts += n_obs * C * itemsize
         flops += 2.0 * Tp * Dl * Dl * L        # HB = Hinv o B
         bts += 2.0 * B_bytes
-        flops += 2.0 * Tp * Tp * (Dl * L)      # S = B @ HB^T (MXU)
+        flops += 2.0 * Tp * Tp * (Dl * L)      # S = B @ HB^T (matmul)
         bts += 2.0 * B_bytes + Tp * Tp * itemsize
         flops += Tp ** 3 / 3.0                 # Cholesky
         bts += 3.0 * Tp * Tp * itemsize
@@ -228,11 +225,10 @@ def roofline_report(cost: PhaseCost, seconds: float, peaks: dict = None,
         "pct_of_roofline": round(100.0 * achieved_f / ceiling_flops, 2),
         "bound": "hbm_bw" if ai * peak_bw < peak_f else "compute",
     }
-    # falsifiability guard (round-5): achieving >100% of a hardware peak
-    # means the COST MODEL mispriced the kernel (BENCH_r04 shipped 113.99%
-    # of HBM bandwidth for the DIA matvec billed with the gather-ELL byte
-    # count) — flag it as a model error rather than printing an
-    # unphysical efficiency; 2% tolerance for timer/clock-spec noise
+    # falsifiability guard: achieving >100% of a hardware peak means the
+    # COST MODEL mispriced the kernel — flag it as a model error rather
+    # than printing an unphysical efficiency; 2% tolerance for
+    # timer/clock-spec noise
     if out["hbm_bw_pct"] > 102.0 or out["mfu_pct"] > 102.0:
         out["model_error"] = (
             "achieved rate exceeds the hardware peak — the analytic "

@@ -143,9 +143,9 @@ class TestKChunking:
 
         monkeypatch.setattr(ba_ell, "_K_CHUNK", 8)
         monkeypatch.setattr(ba_ell, "_BUCKET_MIN", 4)
-        # multi-bucket tables are production-disabled on this toolchain
-        # (TPU miscompilation, see ba_ell._BUCKET_ENABLE) but must stay
-        # numerically verified for the re-enable day
+        # multi-bucket tables are off in production until verified on the
+        # GPU (see ba_ell._BUCKET_ENABLE) but must stay numerically verified
+        # for the day they are turned on
         monkeypatch.setattr(ba_ell, "_BUCKET_ENABLE", True)
         pat_b = build_ba_ell_pattern(prob)
         assert any(len(pg.cam_buckets) > 1

@@ -2,7 +2,7 @@
 factory/CLI reachability of dl_var_pcg.
 
 The reference runs Dogleg on any linear-solver backend through
-BlockSolverBase::multiplyHessian (block_solver.h:90); the TPU re-design
+BlockSolverBase::multiplyHessian (block_solver.h:90); the JAX re-design
 pairs the dense `_dogleg_step` with `_dogleg_pcg_step` on the block-ELL
 pattern (optimization_algorithm_dogleg.cpp:57-229 semantics in both)."""
 import numpy as np

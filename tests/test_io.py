@@ -7,8 +7,6 @@ import pytest
 from openslam_g2o_tpu.core.graph import Graph
 from openslam_g2o_tpu.io.g2o_format import load_g2o, loads_g2o, save_g2o
 
-DATA_2D = "/root/reference/data/2d"
-DATA_3D = "/root/reference/data/3d"
 
 SAMPLE = """
 # a comment line
@@ -87,27 +85,50 @@ class TestRoundTrip:
             np.testing.assert_allclose(e2.information, e1.information, atol=1e-15)
 
 
+def _round_trip(g, tmp_path, name):
+    """Save a generated graph as .g2o and read it back (the dataset path:
+    native tokenizer where it builds, Python parser otherwise)."""
+    path = tmp_path / name
+    save_g2o(g, str(path))
+    return load_g2o(str(path))
+
+
 class TestDatasets:
-    def test_load_manhattan(self):
-        g = load_g2o(f"{DATA_2D}/manhattan3500/manhattanOlson3500.g2o")
+    """Dataset-sized files from the in-repo generators, through the .g2o
+    writer and reader."""
+
+    def test_load_manhattan(self, tmp_path):
+        from openslam_g2o_tpu.apps.simulator import Simulator2D
+        src, _ = Simulator2D(seed=0).simulate(3500, landmark_obs=False)
+        g = _round_trip(src, tmp_path, "manhattan.g2o")
         assert g.num_vertices() == 3500
-        assert g.num_edges() == 5598
+        assert g.num_edges() == src.num_edges() > 3500
         assert all(v.vtype.name == "se2" for v in g.vertices.values())
+        assert g.vertices[0].fixed
 
-    def test_load_intel(self):
-        g = load_g2o(f"{DATA_2D}/intel/intel.g2o")
-        assert g.num_vertices() > 700
+    def test_load_intel(self, tmp_path):
+        from openslam_g2o_tpu.apps.simulator import Simulator2D
+        src, _ = Simulator2D(seed=1).simulate(943, landmark_obs=False)
+        g = _round_trip(src, tmp_path, "intel.g2o")
+        assert g.num_vertices() == 943
         assert g.num_edges() >= g.num_vertices() - 1
+        for vid in (1, 500, 942):
+            np.testing.assert_array_equal(g.vertices[vid].params,
+                                          src.vertices[vid].params)
 
-    def test_load_sphere(self):
-        g = load_g2o(f"{DATA_3D}/sphere/sphere_bignoise_vertex3.g2o")
+    def test_load_sphere(self, tmp_path):
+        from openslam_g2o_tpu.apps.simulator import create_sphere
+        src, _ = create_sphere(n_laps=44, n_per_lap=50)
+        g = _round_trip(src, tmp_path, "sphere.g2o")
         assert g.num_vertices() == 2200
-        assert g.num_edges() == 8647
+        assert g.num_edges() == src.num_edges()
         assert all(v.vtype.name == "se3" for v in g.vertices.values())
         # quaternions normalized
         q = np.stack([v.params[3:7] for v in g.vertices.values()])
         np.testing.assert_allclose(np.linalg.norm(q, axis=1), 1.0, atol=1e-6)
 
-    def test_load_garage(self):
-        g = load_g2o(f"{DATA_3D}/garage/parking-garage.g2o")
+    def test_load_garage(self, tmp_path):
+        from openslam_g2o_tpu.apps.simulator import Simulator3D
+        src, _ = Simulator3D(seed=0).simulate(1661, landmark_obs=False)
+        g = _round_trip(src, tmp_path, "garage.g2o")
         assert g.num_vertices() == 1661

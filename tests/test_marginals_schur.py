@@ -1,7 +1,7 @@
 """Schur-path marginal covariance vs the dense reference path.
 
 Methodology: the dense path (compute_marginals_all_diagonal) inverts the full
-H via MXU Cholesky — exact but O(T^3) in the TOTAL dim, untenable for BA.
+H via dense Cholesky — exact but O(T^3) in the TOTAL dim, untenable for BA.
 The Schur path must reproduce it digit-close on a problem small enough to run
 both (marginal_covariance_cholesky.h:50-103 parity)."""
 import numpy as np
